@@ -2,13 +2,12 @@
 
 The reference exists to feed exactly this consumer — btllib's Bloom
 filters (reference include/nthash/nthash.hpp:56-58) — but leaves the
-filter to the caller. Here the whole path is on device: the hash kernel
-emits bucket indices with validity fused, ingestion is exact MXU one-hot
-packing (1 bit/bucket in HBM end to end, widths up to 2^30 on TPU), and
-queries are gathers.
+filter to the caller. Here the whole path is on device: hashes feed a
+scatter into a presence array that packs to 1 bit per bucket (a 2^30-bit
+filter is 128 MB of device memory), and queries are gathers.
 
 Usage: python examples/bloom_filter.py [width_log2] (default 20; on a
-real TPU try 30 — the multi-gigabit btllib regime).
+GPU try 30 — the multi-gigabit btllib regime).
 """
 
 import sys

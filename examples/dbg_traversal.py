@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Batched de Bruijn graph probing — the BlindNtHash use-case at TPU scale.
+"""Batched de Bruijn graph probing — the BlindNtHash use-case on the device.
 
 The reference's BlindNtHash probes one graph walk at a time with
 peek('A'/'C'/'G'/'T') (reference src/kmer.cpp:377-384). Here 4096 walks

@@ -6,7 +6,7 @@ examples/spaced_seed_hashing.cpp is 0 bytes. This is the real thing.)
 
 1. The scalar facade: SeedNtHash walks a sequence under two patterns.
 2. The batched device engine: the same hashes for every window of a whole
-   read batch in one call (the TPU-native way).
+   read batch in one call (the batched way).
 """
 
 import numpy as np

@@ -42,8 +42,9 @@ def _cmd_count(args) -> int:
 
     t0 = time.time()
     if args.fused:
-        # production path: bucket emission in-kernel, MXU histograms,
-        # parse thread overlapping device work; no 64-bit hash in HBM
+        # production path: bucket emission in-kernel, scatter-add
+        # ingestion, parse thread overlapping device work; no 64-bit hash
+        # reaches device memory
         reads = pipe.count_file(args.file, batch_size=args.batch_size,
                                 threads=args.threads)
         import numpy as np
@@ -90,6 +91,9 @@ def main(argv=None) -> int:
     pc.set_defaults(fn=_cmd_count)
 
     args = p.parse_args(argv)
+    from .backend import enable_compile_cache
+
+    enable_compile_cache()
     try:
         return args.fn(args)
     except (ValueError, FileNotFoundError) as e:

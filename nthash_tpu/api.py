@@ -10,7 +10,7 @@ seed check emits a :class:`UserWarning` (reference src/seed.cpp:85-104).
 
 Design: the stored-sequence classes are a thin stateful view over the batched
 device engines — window hashes are computed one ``FACADE_TILE_WINDOWS`` tile
-at a time (vectorized, on TPU when available) with at most two tiles
+at a time (vectorized, on the accelerator when available) with at most two tiles
 resident, so iteration is pointer movement at the reference's O(k)-memory
 envelope up to tile granularity (a 3-Gbp sequence never materializes a
 whole-genome table). The Blind classes keep O(1) host-side carried state
@@ -49,23 +49,14 @@ __all__ = [
 
 from .constants import NTHASH_FN_NAME
 
-#: Sequence length at/above which "auto" uses the batched JAX engine on
-#: an accelerator backend; below it the host oracle avoids device
-#: round-trips for tiny inputs. Measured (docs/design.md §10): on the CPU
-#: backend the XLA engine beats the numpy oracle at every size (0.3 ms vs
-#: 1.7 ms already at 512 windows), so CPU uses the lower
-#: AUTO_DEVICE_THRESHOLD_CPU; on a local accelerator the ~0.1-1 ms
-#: dispatch amortizes by ~2048 windows. (Through a high-latency dev
-#: tunnel the oracle wins at all sizes — pass engine="oracle" there.)
-AUTO_DEVICE_THRESHOLD = 2048
-AUTO_DEVICE_THRESHOLD_CPU = 512
-
 
 def _auto_device_threshold() -> int:
-    import jax
+    """Length at which engine="auto" leaves the host oracle for the
+    device engine (decided per backend in nthash_tpu.backend)."""
+    from .backend import auto_device_threshold
 
-    return (AUTO_DEVICE_THRESHOLD_CPU if jax.default_backend() == "cpu"
-            else AUTO_DEVICE_THRESHOLD)
+    return auto_device_threshold()
+
 
 #: Windows per lazily-hashed facade tile. The stored-sequence classes hash
 #: one tile on demand and keep at most two resident (the second avoids
@@ -755,9 +746,9 @@ class SeedNtHash:
     def _ensure_taps(self):
         """Two-tap rolling tables per maximal care run per seed — the
         O(#care-runs) state-rolling machinery shared with
-        :class:`BlindSeedNtHash` (derivation in ops/seed_pallas.py)."""
+        :class:`BlindSeedNtHash` (derivation in ops/seed_jnp.py)."""
         if self._taps is None:
-            from .ops.seed_pallas import seed_taps
+            from .ops.seed_jnp import seed_taps
 
             self._taps = [seed_taps(p) for p in self._seeds]
 
@@ -963,7 +954,7 @@ class BlindSeedNtHash:
         # is O(#care-runs) per fed base like the reference's O(#blocks)
         # NTMSM64 roll (reference src/seed.cpp:701-718, 177-207), NOT an
         # O(k*S) window rehash. Same math as ops/blind_seed_scan._roll.
-        from .ops.seed_pallas import seed_taps
+        from .ops.seed_jnp import seed_taps
 
         self._taps = [seed_taps(p) for p in self._seeds]
         s = len(self._seeds)
@@ -999,7 +990,7 @@ class BlindSeedNtHash:
         """O(#care-runs) two-tap roll (reference NTMSM64 roll,
         src/seed.cpp:701-718): per care run [s, e), XOR in the entering
         edge and XOR out the leaving edge — per-roll work is independent
-        of k (see ops/seed_pallas.py for the derivation)."""
+        of k (see ops/seed_jnp.py for the derivation)."""
         c_in = self._code(char_in)
         k, w = self._k, self._window
         for si, taps in enumerate(self._taps):

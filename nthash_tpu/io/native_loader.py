@@ -1,37 +1,76 @@
 """ctypes bindings for the native C++ FASTX parser/encoder.
 
-The shared library builds lazily (g++ -O3 into the package directory) on
-first use and is cached; callers that can't build (no toolchain) fall back
-to the numpy loader in io/fasta.py transparently via ``available()``.
+The shared library builds lazily on first use (``g++ -O3 -march=native``)
+into ``native/build/<key>/``, where the key names the host, its CPU
+architecture, the compiler's version and the source's content. A library
+built on one machine is never loaded on another CPU, and editing the
+source or changing compilers rebuilds it. The build directory is
+gitignored. Callers that can't build (no toolchain) fall back to the
+numpy loader in io/fasta.py transparently via ``available()``;
+:func:`library_path` says which parser a run used.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import platform
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
 _SRC = Path(__file__).parent / "native" / "fastx.cpp"
-_LIB = Path(__file__).parent / "native" / "libfastx.so"
+_BUILD = Path(__file__).parent / "native" / "build"
+_CXX = "g++"
 
 _lib = None
+_lib_path: Path | None = None
 _build_error: str | None = None
 
 
+def _cpu_features() -> bytes:
+    """The first CPU's model and flags (what ``-march=native`` reads)."""
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return platform.processor().encode()
+    keep = [ln for ln in text.split("\n\n")[0].splitlines()
+            if ln.startswith(("model name", "flags", "Features"))]
+    return "\n".join(keep).encode()
+
+
+def build_key() -> str:
+    """Host name, machine and a digest of (CPU features, compiler
+    version, source)."""
+    version = subprocess.run(
+        [_CXX, "--version"], check=True, capture_output=True, text=True,
+    ).stdout
+    digest = hashlib.sha256(
+        _cpu_features() + version.encode() + _SRC.read_bytes()
+    ).hexdigest()[:16]
+    return f"{platform.node() or 'host'}-{platform.machine()}-{digest}"
+
+
 def _load():
-    global _lib, _build_error
+    global _lib, _lib_path, _build_error
     if _lib is not None or _build_error is not None:
         return _lib
     try:
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
+        lib_path = _BUILD / build_key() / "libfastx.so"
+        if not lib_path.exists():
+            lib_path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-std=c++17", str(_SRC), "-o", str(_LIB)],
+                [_CXX, "-O3", "-march=native", "-shared", "-fPIC",
+                 "-std=c++17", str(_SRC), "-o", str(tmp)],
                 check=True, capture_output=True, text=True,
             )
-        lib = ctypes.CDLL(str(_LIB))
+            # atomic rename: a concurrent process never loads a
+            # half-written library
+            tmp.replace(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
         lib.nthash_encode.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p]
         lib.nthash_parser_open.restype = ctypes.c_void_p
@@ -48,7 +87,7 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p]
         lib.nthash_parser_error.restype = ctypes.c_char_p
         lib.nthash_parser_error.argtypes = [ctypes.c_void_p]
-        _lib = lib
+        _lib, _lib_path = lib, lib_path
     except (subprocess.CalledProcessError, OSError) as e:
         _build_error = getattr(e, "stderr", None) or str(e)
     return _lib
@@ -56,6 +95,12 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def library_path() -> Path | None:
+    """The native library this process loaded, or None (numpy parser)."""
+    _load()
+    return _lib_path
 
 
 def encode(seq: bytes) -> np.ndarray:

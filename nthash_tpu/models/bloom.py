@@ -3,26 +3,18 @@
 ntHash exists to feed Bloom filters (reference include/nthash/nthash.hpp:56-58
 points at btllib; the nte64 multi-hash extension exists precisely to derive
 the h independent index functions a Bloom filter needs). This is the
-TPU-native equivalent, **bit-packed**: 1 bit per bucket, stored as uint32
-words (the round-1 one-int32-per-bit layout spent 32x the memory, which at
-genome scale meant 4 GB of HBM per 2^30-bit filter).
+device equivalent, **bit-packed**: 1 bit per bucket, stored as uint32
+words (a 2^30-bit filter is 128 MB of device memory).
 
-Insertion is a scatter-OR, which TPUs lack; three ingestion paths provide it:
-- "mxu": ops.hist_pallas.mxu_bloom_words — one-hot matmul presence tiles in
-  VMEM, packed to words in-kernel, OR'd into the filter. HBM traffic is
-  1 bit per bucket end to end. Widths up to 2^18.
-- "partitioned": ops.part_pallas.partitioned_bloom_words — sort-partitioned
-  MXU presence for genome-scale widths 2^19..2^29 (the multi-gigabit
-  filters btllib actually builds); still 1 bit/bucket in HBM (presence
-  tiles live only in VMEM).
-- "scatter": XLA scatter-max into a transient int8 presence array (1
-  byte/bucket — never the 4-byte int32 of round 1), then packed. Portable
-  fallback for non-TPU backends and widths above 2^29.
+Insertion is a scatter-OR. XLA has no scatter-OR, so insertion scatters
+into a transient presence array (``PRESENCE_DTYPE``, one element per
+bucket; the GPU runs the scatter as atomics) and packs it into words.
 
-Both use the same bucket -> (word, bit) bijection (hist_pallas.word_index /
-bit_index), chosen so the kernel packs 32 *sublanes* into a word without
-cross-lane shuffles. Queries are gathers + bit tests and run near memory
-speed. Cross-device merge is a bitwise OR (one all_gather).
+Bit layout: bucket b lives in word :func:`word_index` (b) at bit
+:func:`bit_index` (b) — 4096-bucket tiles of 32 rows x 128 columns, each
+column packing into one word. Users persist filters in this layout, so it
+never changes. Queries are gathers + bit tests. Cross-device merge is a
+bitwise OR (one all_gather).
 
 False-positive tuning: m = 2**width_log2 bits, optimal h ~= (m/n) ln 2.
 """
@@ -34,19 +26,27 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..ops.hist_pallas import (
-    MXU_MAX_WIDTH_LOG2,
-    bit_index,
-    mxu_bloom_words,
-    word_index,
-)
-from ..ops.part_pallas import (
-    BLOOM_PART_MAX_WIDTH_LOG2,
-    partitioned_bloom_words,
-)
 from ..u64 import U64
 
 _MIN_WIDTH_LOG2 = 12  # the packed bijection tiles (width/4096, 32, 128)
+
+#: Element type of the transient presence array that insertion scatters
+#: into before packing: 1 byte per bucket (1 GB at 2^30). The GPU has no
+#: 8-bit atomic, so the int8 scatter-max is slower than an int32 one, but at
+#: 2^30 only 1.2x, and 1.25x slower than the count scatter-add at the same
+#: width, while int32 would cost 4 GB (PERF.md, Bring-up on H100).
+PRESENCE_DTYPE = jnp.int8
+
+
+def word_index(bucket):
+    """Packed-word bijection: bucket b lives in word
+    ``((b >> 12) << 7) | (b & 127)`` at bit ``(b >> 7) & 31`` (32 rows of
+    a 4096-bucket tile pack into one word per column)."""
+    return ((bucket >> 12) << 7) | (bucket & 127)
+
+
+def bit_index(bucket):
+    return (bucket >> 7) & 31
 
 
 class BloomFilter(NamedTuple):
@@ -82,58 +82,37 @@ def pack_presence(presence: jnp.ndarray) -> jnp.ndarray:
     return jnp.sum(p << shifts, axis=1).reshape(-1)
 
 
+def presence_words(idx: jnp.ndarray, width_log2: int) -> jnp.ndarray:
+    """Packed words with the bit of every index in [0, 2**width_log2) set;
+    other indices (the invalid-window sentinel) are dropped."""
+    presence = (
+        jnp.zeros(1 << width_log2, PRESENCE_DTYPE)
+        .at[idx]
+        .max(PRESENCE_DTYPE(1), mode="drop")
+    )
+    return pack_presence(presence)
+
+
 def insert(bf: BloomFilter, hashes: U64, valid: jnp.ndarray,
-           width_log2: int, *, ingestion: str = "auto") -> BloomFilter:
+           width_log2: int) -> BloomFilter:
     """Set the bit of every valid window's every hash.
 
     hashes: U64 [..., H] (H = hash functions per k-mer); valid: bool of
-    hashes.shape[:-1]. ingestion: "auto" | "mxu" | "scatter".
+    hashes.shape[:-1].
     """
-    idx = _indices(hashes, width_log2).reshape(-1)
-    w = jnp.broadcast_to(
-        valid.reshape(-1, 1), (valid.size, hashes.hi.shape[-1])
-    ).reshape(-1)
-    if ingestion == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        if not on_tpu:
-            ingestion = "scatter"
-        elif width_log2 <= MXU_MAX_WIDTH_LOG2:
-            ingestion = "mxu"
-        elif width_log2 <= BLOOM_PART_MAX_WIDTH_LOG2:
-            ingestion = "partitioned"
-        else:
-            ingestion = "scatter"
-    if ingestion == "mxu":
-        new = mxu_bloom_words(
-            idx, w, width_log2, interpret=jax.default_backend() != "tpu"
-        )
-    elif ingestion == "partitioned":
-        folded = jnp.where(w, idx, jnp.int32(1 << width_log2))
-        new = partitioned_bloom_words(
-            folded, width_log2, interpret=jax.default_backend() != "tpu"
-        )
-    else:
-        # int8 presence transient (1 byte/bucket, not 4 — the int32
-        # transient was VERDICT r2 weak #3); pack_presence widens per
-        # 4096-bucket tile only
-        presence = (
-            jnp.zeros(1 << width_log2, jnp.int8)
-            .at[idx]
-            .max(w.astype(jnp.int8), mode="drop")
-        )
-        new = pack_presence(presence)
-    return BloomFilter(bf.words | new)
+    idx = jnp.where(valid[..., None], _indices(hashes, width_log2),
+                    jnp.int32(1 << width_log2))
+    return BloomFilter(bf.words | presence_words(idx.reshape(-1), width_log2))
 
 
 def insert_from_buckets(
-    bf: BloomFilter, buckets, *,
-    emitted_width_log2: int | None = None, interpret: bool = False
+    bf: BloomFilter, buckets, *, emitted_width_log2: int | None = None,
 ) -> BloomFilter:
-    """Ingest pre-bucketed indices from the fused hash kernels.
+    """Ingest pre-bucketed indices from the fused hash kernel.
 
-    buckets: list of int32 arrays from ``hash_*_tm(..., emit_buckets=
+    buckets: list of int32 arrays from ``hash_kmers_tm(..., emit_buckets=
     width_log2)`` with width matching the filter. Invalid windows carry
-    the out-of-range sentinel and are dropped by the kernel. Pass
+    the out-of-range sentinel and are dropped. Pass
     ``emitted_width_log2`` (the ``emit_buckets`` value used) to guard
     against width drift — buckets emitted at a smaller width would
     silently insert their sentinel as a real bit of the wider filter.
@@ -145,18 +124,7 @@ def insert_from_buckets(
             f"filter width is 2**{width_log2}"
         )
     idx = jnp.concatenate([b.reshape(-1) for b in buckets])
-    if width_log2 <= MXU_MAX_WIDTH_LOG2:
-        new = mxu_bloom_words(idx, None, width_log2, interpret=interpret)
-    elif width_log2 <= BLOOM_PART_MAX_WIDTH_LOG2:
-        new = partitioned_bloom_words(idx, width_log2, interpret=interpret)
-    else:
-        presence = (
-            jnp.zeros(1 << width_log2, jnp.int8)
-            .at[idx]
-            .max(jnp.int8(1), mode="drop")
-        )
-        new = pack_presence(presence)
-    return BloomFilter(bf.words | new)
+    return BloomFilter(bf.words | presence_words(idx, width_log2))
 
 
 def contains(bf: BloomFilter, hashes: U64, width_log2: int) -> jnp.ndarray:

@@ -2,16 +2,13 @@
 
 The reference's ecosystem consumes ntHash values in Bloom filters / count
 sketches (reference include/nthash/nthash.hpp:56-58 points at btllib). This
-module provides the TPU-native equivalent: a count-min sketch whose rows are
+module provides the device equivalent: a count-min sketch whose rows are
 indexed by the nte64 extended hashes and merged across devices with a single
 psum (the all-reduce the reference lacks, SURVEY.md §2.7).
 
-Two ingestion paths (``update(..., ingestion=...)``):
-- "mxu": ops.hist_pallas.mxu_histogram_rows — one-hot matmuls on the MXU,
-  measured 0.21 ns/update at width 2^14 vs ~7 ns for scatter. "auto" picks
-  it on TPU up to the measured crossover width (docs/design.md §7).
-- "scatter": XLA scatter-add per row; portable, and the right choice above
-  the crossover.
+Ingestion is one XLA scatter-add per row, which the GPU runs as atomic
+adds; out-of-range indices (the invalid-window sentinel ``width``) are
+dropped by ``mode="drop"``.
 
 The sketch is the "trainable state" of the flagship pipeline: per batch,
 update = histogram of every valid window's hashes; merge = psum.
@@ -21,19 +18,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
-from ..ops.hist_pallas import (
-    MXU_MAX_WIDTH_LOG2,
-    MXU_MIN_WIDTH_LOG2,
-    mxu_histogram_rows,
-)
-from ..ops.part_pallas import (
-    PART_MAX_WIDTH_LOG2,
-    PART_MIN_WIDTH_LOG2,
-    partitioned_histogram_rows,
-)
 from ..u64 import U64
 
 
@@ -59,23 +45,15 @@ def buckets(hashes: U64, width_log2: int) -> jnp.ndarray:
     return (hashes.lo & mask).astype(jnp.int32)
 
 
-def resolve_ingestion(ingestion: str, width_log2: int) -> str:
-    """'auto' -> on TPU, the direct MXU histogram below its crossover
-    width and the sort-partitioned MXU histogram at genome-scale widths
-    2^19..2^30 (measured ~2-3 ns/update at 2^19-2^23 vs ~8 ns scatter,
-    docs/design.md §7; wider widths use bigger sort chunks); scatter
-    elsewhere."""
-    if ingestion == "auto":
-        if jax.default_backend() != "tpu":
-            return "scatter"
-        if MXU_MIN_WIDTH_LOG2 <= width_log2 <= MXU_MAX_WIDTH_LOG2:
-            return "mxu"
-        if PART_MIN_WIDTH_LOG2 <= width_log2 <= PART_MAX_WIDTH_LOG2:
-            return "partitioned"
-        return "scatter"
-    if ingestion not in ("mxu", "partitioned", "scatter"):
-        raise ValueError(f"unknown ingestion {ingestion!r}")
-    return ingestion
+def scatter_counts(idx: jnp.ndarray, width_log2: int) -> jnp.ndarray:
+    """[rows, N] int32 bucket indices -> [rows, 2**width_log2] int32
+    counts. Indices outside [0, width) — the invalid-window sentinel —
+    are dropped."""
+    width = 1 << width_log2
+    return jnp.stack([
+        jnp.zeros(width, jnp.int32).at[row].add(1, mode="drop")
+        for row in idx
+    ])
 
 
 def update(
@@ -83,43 +61,16 @@ def update(
     hashes: U64,
     valid: jnp.ndarray,
     width_log2: int,
-    *,
-    ingestion: str = "auto",
 ) -> CountMinSketch:
     """Count every valid window's hashes into the sketch.
 
     hashes: U64 with arrays [..., num_rows] (last axis = hash index),
     valid: bool of hashes.shape[:-1].
-    ingestion: "auto" | "mxu" (one-hot MXU matmuls) | "scatter".
     """
     num_rows = sketch.rows.shape[0]
     idx = buckets(hashes, width_log2).reshape(-1, num_rows)  # [N, R]
-    w = valid.reshape(-1).astype(jnp.int32)
-    mode = resolve_ingestion(ingestion, width_log2)
-    if mode == "mxu":
-        counts = mxu_histogram_rows(
-            idx.T, w, width_log2, weight_bits=1,
-            interpret=jax.default_backend() != "tpu",
-        )
-        return CountMinSketch(sketch.rows + counts)
-    if mode == "partitioned":
-        # fold validity into the index (invalid -> out-of-range sentinel,
-        # dropped by the kernel)
-        folded = jnp.where(w[:, None] != 0, idx, jnp.int32(1 << width_log2))
-        counts = partitioned_histogram_rows(
-            folded.T, width_log2, interpret=jax.default_backend() != "tpu",
-        )
-        return CountMinSketch(sketch.rows + counts)
-    # One plain scatter-add per row: TPU scatter is a serialized loop
-    # (~7 ns/element measured on v5e), and a per-row Python loop lowers
-    # 1.7x faster than a vmapped scatter over the row axis. Above the MXU
-    # crossover width this stage, not hashing, bounds end-to-end counting
-    # throughput (docs/design.md §7).
-    rows = [
-        sketch.rows[r].at[idx[:, r]].add(w, mode="drop")
-        for r in range(num_rows)
-    ]
-    return CountMinSketch(jnp.stack(rows))
+    idx = jnp.where(valid.reshape(-1, 1), idx, jnp.int32(1 << width_log2))
+    return CountMinSketch(sketch.rows + scatter_counts(idx.T, width_log2))
 
 
 def update_from_buckets(
@@ -127,17 +78,15 @@ def update_from_buckets(
     buckets,
     *,
     emitted_width_log2: int | None = None,
-    interpret: bool = False,
 ) -> CountMinSketch:
-    """Ingest pre-bucketed indices from the fused hash kernels.
+    """Ingest pre-bucketed indices from the fused hash kernel.
 
     buckets: list of ``num_rows`` int32 arrays (any matching shape), as
-    produced by ``hash_kmers_tm(..., emit_buckets=width_log2)`` /
-    ``hash_seeds_tm(..., emit_buckets=width_log2)`` — row r of the sketch
-    counts array r. Validity is already fused: invalid windows carry the
-    out-of-range sentinel ``width`` and are dropped by the MXU kernel.
-    This is the fast path of the counting pipeline (no 64-bit hash ever
-    reaches HBM; see BENCH_r02.json ``count_pipeline_kmers_per_s``).
+    produced by ``hash_kmers_tm(..., emit_buckets=width_log2)`` — row r of
+    the sketch counts array r. Validity is already fused: invalid windows
+    carry the out-of-range sentinel ``width`` and are dropped. This is the
+    fast path of the counting pipeline (no 64-bit hash ever reaches device
+    memory).
 
     Pass ``emitted_width_log2`` (the ``emit_buckets`` value used at the
     hash kernel) to guard against width drift: buckets emitted at a
@@ -156,22 +105,7 @@ def update_from_buckets(
             f"sketch width is 2**{width_log2}"
         )
     idx = jnp.stack([b.reshape(-1) for b in buckets])
-    if width_log2 <= MXU_MAX_WIDTH_LOG2:
-        counts = mxu_histogram_rows(
-            idx, None, width_log2, weight_bits=1, interpret=interpret
-        )
-    elif width_log2 <= PART_MAX_WIDTH_LOG2:
-        # genome-scale widths: sort-partitioned MXU path (exact, with a
-        # skew-overflow scatter fallback inside)
-        counts = partitioned_histogram_rows(
-            idx, width_log2, interpret=interpret
-        )
-    else:
-        counts = jnp.stack([
-            jnp.zeros(width, jnp.int32).at[idx[r]].add(1, mode="drop")
-            for r in range(num_rows)
-        ])
-    return CountMinSketch(sketch.rows + counts)
+    return CountMinSketch(sketch.rows + scatter_counts(idx, width_log2))
 
 
 def query(sketch: CountMinSketch, hashes: U64, width_log2: int) -> jnp.ndarray:
@@ -187,9 +121,8 @@ def query(sketch: CountMinSketch, hashes: U64, width_log2: int) -> jnp.ndarray:
 def query_rows(sketch: CountMinSketch, hashes, width_log2: int) -> jnp.ndarray:
     """Count-min estimate for the time-major layout: ``hashes`` is a list
     of ``num_rows`` U64 (any common shape, e.g. [W, B]); returns estimates
-    of that shape. Same math as :func:`query` without the stacked layout's
-    128x lane padding (see parallel/sp.py on why [..., H] stacks are
-    hostile on TPU)."""
+    of that shape. Same math as :func:`query` for the per-hash list
+    layout."""
     num_rows = sketch.rows.shape[0]
     if len(hashes) != num_rows:
         raise ValueError(

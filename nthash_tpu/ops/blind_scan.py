@@ -1,4 +1,4 @@
-"""Batched stateful blind rolling: BlindNtHash at TPU scale.
+"""Batched stateful blind rolling: BlindNtHash on the device.
 
 The reference's BlindNtHash (src/kmer.cpp:338-393) carries (fwd, rev, k-char
 window) and is fed one base at a time — the de Bruijn graph traversal

@@ -1,4 +1,4 @@
-"""Batched stateful blind spaced-seed rolling: BlindSeedNtHash at TPU scale.
+"""Batched stateful blind spaced-seed rolling: BlindSeedNtHash on the device.
 
 The reference's BlindSeedNtHash (src/seed.cpp:669-737) carries per-seed
 (fwd, rev) plus a k-char window and is fed one base at a time. Here that
@@ -6,8 +6,8 @@ state is a pytree of [B, S]-vectored limb pairs plus a [B, k] window, so
 thousands of independent caller-fed walks advance in lockstep under
 ``lax.scan`` / per-step rolls.
 
-Rolling uses the same two-tap care-run updates as ops/seed_pallas.py (see
-its module docstring for the derivation), with taps gathered from the
+Rolling uses the two-tap care-run updates of ops/seed_jnp.seed_taps (see
+the comment above it for the derivation), with taps gathered from the
 stored window at static positions instead of the input stream. roll_back
 is the exact algebraic inverse, bit-for-bit (parity with reference
 seed.cpp:720-737).
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from .. import u64
 from ..u64 import U64
-from .seed_pallas import BlockTaps, seed_taps
+from .seed_jnp import BlockTaps, seed_taps
 
 
 class BlindSeedState(NamedTuple):

@@ -1,10 +1,11 @@
-"""Batched k-mer hashing engine in pure jax.numpy (TPU/CPU portable).
+"""Batched k-mer hashing engine in pure jax.numpy (portable: any backend).
 
-TPU-first reformulation of ntHash's sequential iterator (reference
+Batched reformulation of ntHash's sequential iterator (reference
 src/kmer.cpp:198-336): instead of one O(1) roll per call, a single
 ``lax.scan`` over sequence position rolls *every read in the batch* one base
-per step, keeping the (fwd, rev) limb-pair state [B] in vector registers.
-Per-step cost is O(1) and independent of k, so k=32 costs the same as k=5.
+per step. Per-step cost is O(1) and independent of k, so k=32 costs the
+same as k=5. This is the engine off the GPU and the reference the Triton
+kernel (ops/kmer_pallas.py) is tested against.
 
 Key identities (derived from fwd/rev being XOR of independently-rotated
 per-base seeds, reference src/kmer.cpp:43-73, 123-152):

@@ -1,6 +1,6 @@
 """Batched spaced-seed ("ntmsm64") hashing engine in pure jax.numpy.
 
-TPU-first reformulation of the reference's block-rolling kernel
+Batched reformulation of the reference's block-rolling kernel
 (reference src/seed.cpp:130-207): because the spaced-seed hash is an XOR of
 independently-rotated per-base seeds over the care positions only,
 
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from .. import u64
-from ..constants import COMP_CODE, srol_seed
+from ..constants import COMP_CODE, SROL_PERIOD, srol_seed
 from ..oracle import get_blocks, seed_positions_of
 from ..u64 import U64
 
@@ -50,6 +50,76 @@ def care_positions(seeds: Sequence[str]) -> list[list[int]]:
     """Care positions per seed via the reference block decomposition."""
     blocks, monomers = get_blocks(list(seeds))
     return [seed_positions_of(b, m) for b, m in zip(blocks, monomers)]
+
+
+# Rolling form (host-side trace helpers for the stateful facades and
+# ops/blind_seed_scan.py): the spaced-seed hash is an XOR of
+# independently-rotated per-base seeds over the care positions, so for
+# each maximal care run [s, e) rolling the window by one base is exactly
+# two edge updates:
+#
+#     fwd(w) = srol(fwd(w-1)) ^ srol^(k-e)(SEED[seq[w-1+e]])
+#                             ^ srol^(k-s)(SEED[seq[w-1+s]])
+#     rev(w) = sror(rev(w-1)) ^ srol^(e-1)(SEED[comp(seq[w-1+e])])
+#                             ^ srol^(s-1)(SEED[comp(seq[w-1+s])])
+#
+# (the srol/sror exponents live in the order-1023 split-rotation group, so
+# s-1 = -1 means srol^1022). There is no monomer special case and no
+# care/ignore complement representation: every care run uses the same
+# two-tap update, and the hash value is identical by XOR algebra.
+
+
+class BlockTaps(NamedTuple):
+    """Trace-time constants for one care run [s, e) of one seed."""
+
+    off_in: int                 # tap offset from t for the entering edge: k - e
+    off_out: int                # tap offset for the leaving edge: k - s
+    fwd_in: tuple[int, ...]     # srol^(k-e)(SEED[b])
+    fwd_out: tuple[int, ...]    # srol^(k-s)(SEED[b])
+    rev_in: tuple[int, ...]     # srol^(e-1)(SEED[comp(b)])
+    rev_out: tuple[int, ...]    # srol^(s-1)(SEED[comp(b)])
+
+
+def care_runs(seed: str) -> list[tuple[int, int]]:
+    """Maximal runs of '1' (care) positions in a pattern string."""
+    runs, start = [], None
+    for i, ch in enumerate(seed):
+        if ch == "1" and start is None:
+            start = i
+        elif ch != "1" and start is not None:
+            runs.append((start, i))
+            start = None
+    if start is not None:
+        runs.append((start, len(seed)))
+    if not runs:
+        raise ValueError(f"seed pattern has no care positions: {seed!r}")
+    return runs
+
+
+def seed_taps(seed: str) -> list[BlockTaps]:
+    k = len(seed)
+    taps = []
+    for s, e in care_runs(seed):
+        taps.append(
+            BlockTaps(
+                off_in=k - e,
+                off_out=k - s,
+                fwd_in=tuple(srol_seed(c, k - e) for c in range(4)) + (0,),
+                fwd_out=tuple(srol_seed(c, k - s) for c in range(4)) + (0,),
+                rev_in=tuple(
+                    srol_seed(COMP_CODE[c], (e - 1) % SROL_PERIOD)
+                    for c in range(4)
+                )
+                + (0,),
+                rev_out=tuple(
+                    srol_seed(COMP_CODE[c], (s - 1) % SROL_PERIOD)
+                    for c in range(4)
+                )
+                + (0,),
+            )
+        )
+    return taps
+
 
 
 @partial(jax.jit, static_argnames=("seeds", "num_hashes_per_seed"))

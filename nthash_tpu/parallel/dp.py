@@ -3,7 +3,8 @@
 The reference parallelizes by letting callers copy one iterator per thread
 (nthash.hpp:95-107). Here a [B, L] read batch is sharded over the "reads"
 mesh axis with shard_map; each device hashes its shard with the batched
-engine and per-device count-min sketches merge with one psum over ICI/DCN.
+engine and per-device count-min sketches merge with one psum (an NCCL
+all-reduce over NVLink on one host).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.kmer_jnp import hash_kmers
+from .. import backend
 from ..u64 import U64
 from ..models import sketch as cms
 from .mesh import READS_AXIS
@@ -24,13 +25,6 @@ from .mesh import READS_AXIS
 def shard_reads(codes: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
     """Place a [B, L] batch with B sharded over the reads axis."""
     return jax.device_put(codes, NamedSharding(mesh, P(READS_AXIS, None)))
-
-
-def resolve_engine(engine: str = "auto") -> str:
-    """'auto' -> the Pallas kernel on TPU, the portable jnp scan elsewhere."""
-    if engine == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-    return engine
 
 
 @partial(
@@ -45,31 +39,24 @@ def fused_count(
     *,
     interpret: bool = False,
 ) -> cms.CountMinSketch:
-    """Distributed fused counting: per shard, the Pallas hash kernel emits
-    int32 bucket indices (validity fused in-kernel) straight into the MXU
-    histogram — no 64-bit hash ever reaches HBM — then one psum merges the
-    per-device sketches. This is the fastest end-to-end counting step
-    (measured per round in BENCH_r*.json, ``count_pipeline_kmers_per_s``
-    for the single-chip step and ``dp_fused_kmers_per_s`` for this one).
+    """Distributed fused counting: per shard, the hash engine emits int32
+    bucket indices with validity fused (on the GPU the Triton kernel, so
+    no 64-bit hash reaches device memory), one scatter-add per sketch row
+    counts them, then one psum merges the per-device sketches.
 
     codes: [B, L] uint8 sharded over the reads axis; one sketch row per
     nte64 hash. Returns the merged CountMinSketch (replicated).
+    ``interpret`` runs the kernel in the Pallas interpreter (tests only).
     """
-    from ..ops.kmer_pallas import hash_kmers_tm_auto, prepare_codes
-
     num_rows, width = sketch.rows.shape
     width_log2 = width.bit_length() - 1
 
     def local_step(local_codes, local_rows):
-        tm = prepare_codes(local_codes, 1)
-        buckets = hash_kmers_tm_auto(
-            tm, k, num_rows, emit_buckets=width_log2, interpret=interpret
-        )
         counts = cms.update_from_buckets(
             cms.CountMinSketch(jnp.zeros_like(local_rows)),
-            buckets,
+            backend.bucket_rows(local_codes, k, num_rows, width_log2,
+                                interpret=interpret),
             emitted_width_log2=width_log2,
-            interpret=interpret,
         ).rows
         return local_rows + jax.lax.psum(counts, READS_AXIS)
 
@@ -83,36 +70,18 @@ def fused_count(
     return cms.CountMinSketch(rows)
 
 
-def unpack_codes_tm(packed: jnp.ndarray, nmask: jnp.ndarray,
-                    length: int) -> jnp.ndarray:
-    """Invert io.stream.pack_codes on device straight into the kernels'
-    time-major layout: (2-bit planes [B, L4/4], N bitmap [B, L8/8]) ->
-    [length, B] int32 codes (0-4).
-
-    Shape discipline: interleaving bit-planes creates a new axis; keeping
-    the batch as the MINOR dim ([pos, plane, B] -> reshape) means every
-    intermediate has a 128-lane-friendly minor dimension. The obvious
-    batch-major form ([B, pos, 4] with a trailing size-4 dim) measured
-    ~30x slower on TPU — Mosaic/XLA pads the unit-ish minor dim to 128
-    lanes.
-    """
-    p_t = packed.T.astype(jnp.int32)                        # [L4/4, B]
-    codes = jnp.stack(
-        [(p_t >> (2 * r)) & 3 for r in range(4)], axis=1
-    ).reshape(-1, p_t.shape[1])                             # [L4, B]
-    n_t = nmask.T.astype(jnp.int32)                         # [L8/8, B]
-    nbits = jnp.stack(
-        [(n_t >> r) & 1 for r in range(8)], axis=1
-    ).reshape(-1, n_t.shape[1])[: codes.shape[0]]           # [L4, B]
-    return jnp.where(nbits != 0, jnp.int32(4), codes)[:length]
-
-
 def unpack_codes(packed: jnp.ndarray, nmask: jnp.ndarray,
                  length: int) -> jnp.ndarray:
-    """Batch-major convenience inverse of io.stream.pack_codes:
-    -> [B, length] uint8. Production paths use :func:`unpack_codes_tm`
-    (see its shape-discipline note)."""
-    return unpack_codes_tm(packed, nmask, length).T.astype(jnp.uint8)
+    """Invert io.stream.pack_codes on device: (2-bit planes [B, L4/4],
+    N bitmap [B, L8/8]) -> [B, length] uint8 codes (0-4)."""
+    b = packed.shape[0]
+    p = packed.astype(jnp.int32)
+    codes = jnp.stack([(p >> (2 * r)) & 3 for r in range(4)],
+                      axis=-1).reshape(b, -1)                # [B, L4]
+    n = nmask.astype(jnp.int32)
+    nbits = jnp.stack([(n >> r) & 1 for r in range(8)],
+                      axis=-1).reshape(b, -1)[:, : codes.shape[1]]
+    return jnp.where(nbits != 0, 4, codes)[:, :length].astype(jnp.uint8)
 
 
 @partial(jax.jit, static_argnames=("k", "length", "mesh", "interpret"))
@@ -127,30 +96,18 @@ def fused_count_packed(
     interpret: bool = False,
 ) -> cms.CountMinSketch:
     """:func:`fused_count` over a pack_codes-compressed batch: the wire
-    carries 2 bits/base + 1 N-bit/base (~3.6x less host->device traffic —
-    the streaming pipeline's bottleneck link), and the codes are unpacked
-    on device inside each shard."""
-    from ..ops.kmer_pallas import hash_kmers_tm_auto
-
+    carries 2 bits/base + 1 N-bit/base (~3.6x less host->device traffic),
+    and the codes are unpacked on device inside each shard."""
     num_rows, width = sketch.rows.shape
     width_log2 = width.bit_length() - 1
 
     def local_step(local_packed, local_nmask, local_rows):
-        from ..ops.kmer_pallas import pad_reads
-
-        tm = unpack_codes_tm(local_packed, local_nmask, length)
-        b = tm.shape[1]
-        r = pad_reads(b, 1)
-        if r != b:  # pad the reads (minor) dim with the invalid code
-            tm = jnp.pad(tm, ((0, 0), (0, r - b)), constant_values=4)
-        buckets = hash_kmers_tm_auto(
-            tm, k, num_rows, emit_buckets=width_log2, interpret=interpret
-        )
+        codes = unpack_codes(local_packed, local_nmask, length)
         counts = cms.update_from_buckets(
             cms.CountMinSketch(jnp.zeros_like(local_rows)),
-            buckets,
+            backend.bucket_rows(codes, k, num_rows, width_log2,
+                                interpret=interpret),
             emitted_width_log2=width_log2,
-            interpret=interpret,
         ).rows
         return local_rows + jax.lax.psum(counts, READS_AXIS)
 
@@ -167,7 +124,8 @@ def fused_count_packed(
 @partial(
     jax.jit,
     static_argnames=(
-        "k", "num_hashes", "width_log2", "mesh", "engine", "time_major"
+        "k", "num_hashes", "width_log2", "mesh", "engine", "time_major",
+        "interpret",
     ),
 )
 def hash_and_sketch(
@@ -179,77 +137,46 @@ def hash_and_sketch(
     mesh: Mesh,
     engine: str = "auto",
     time_major: bool = False,
+    *,
+    interpret: bool = False,
 ):
     """One full distributed step: hash the sharded batch, update the sketch,
     all-reduce the sketch across devices.
 
-    ``engine``: "auto" (Pallas kernel on TPU, jnp elsewhere), "jnp", or
-    "pallas".
+    ``engine``: "auto" (the Triton kernel on a GPU, the XLA scan
+    elsewhere), "jnp", or "pallas" (GPU only; ``interpret=True`` runs it
+    in the Pallas interpreter for tests).
 
-    ``time_major=True`` returns hashes in the framework's native
-    window-major layout — a *list* of ``num_hashes`` U64 with [W, B]
-    arrays (B sharded over reads) plus valid [W, B]. This is the fast
-    path twice over: the Pallas kernel produces [W, R] tiles, so the
-    batch-major [B, W, H] output costs one ~0.9 ns/element relayout per
-    limb per hash (VERDICT r2 weak #1), and any stacked [..., H] layout
-    additionally lane-pads the tiny trailing dim up to 128x on TPU (the
-    same pathology parallel/sp.py documents). The sketch update itself is
-    layout-free either way (histograms are order-invariant).
+    ``time_major=True`` returns hashes in the kernel's native window-major
+    layout — a *list* of ``num_hashes`` U64 with [W, B] arrays (B sharded
+    over reads) plus valid [W, B] — which skips the relayout to the
+    batch-major [B, W, H] stack. The sketch update itself is layout-free
+    either way (histograms are order-invariant).
 
     Returns (hashes, valid, merged CountMinSketch replicated); hashes are
     one U64 [B, W, H] by default, a list of per-hash U64 [W, B] when
     ``time_major``.
     """
-    use_pallas = resolve_engine(engine) == "pallas"
+    mask = jnp.uint32((1 << width_log2) - 1)
+    sentinel = jnp.int32(1 << width_log2)
 
     def local_step(local_codes, local_rows):
-        lb = local_codes.shape[0]
-        if use_pallas:
-            from ..ops.kmer_jnp import window_valid_tm
-            from ..ops.kmer_pallas import hash_kmers_tm_auto, prepare_codes
-
-            tm = prepare_codes(local_codes, 1)
-            res = hash_kmers_tm_auto(tm, k, num_hashes)  # H x U64 [W, R]
-            valid = window_valid_tm(tm, k)          # [W, R]
-            # bucket rows directly from the per-hash [W, R] limbs — no
-            # relayout; invalid windows -> out-of-range sentinel
-            mask = jnp.uint32((1 << width_log2) - 1)
-            sentinel = jnp.int32(1 << width_log2)
-            bucks = [
-                jnp.where(valid, (h.lo & mask).astype(jnp.int32), sentinel)
-                for h in res
-            ]
-            local_sketch = cms.update_from_buckets(
-                cms.CountMinSketch(jnp.zeros_like(local_rows)),
-                bucks,
-                emitted_width_log2=width_log2,
-                interpret=jax.default_backend() != "tpu",
-            )
-            if time_major:
-                his = tuple(h.hi[:, :lb] for h in res)
-                los = tuple(h.lo[:, :lb] for h in res)
-                valid = valid[:, :lb]
-            else:
-                his = (jnp.stack(
-                    [h.hi for h in res], axis=-1).transpose(1, 0, 2)[:lb],)
-                los = (jnp.stack(
-                    [h.lo for h in res], axis=-1).transpose(1, 0, 2)[:lb],)
-                valid = valid.T[:lb]
+        res, valid = backend.hash_windows_tm(
+            local_codes, k, num_hashes, engine=engine,
+            interpret=interpret)                        # H x U64 [W, B]
+        local_sketch = cms.update_from_buckets(
+            cms.CountMinSketch(jnp.zeros_like(local_rows)),
+            [jnp.where(valid, (h.lo & mask).astype(jnp.int32), sentinel)
+             for h in res],
+            emitted_width_log2=width_log2,
+        )
+        if time_major:
+            his = tuple(h.hi for h in res)
+            los = tuple(h.lo for h in res)
         else:
-            res = hash_kmers(local_codes, k, num_hashes)
-            hashes, valid = res.hashes, res.valid    # [B, W, H] / [B, W]
-            local_sketch = cms.update(
-                cms.CountMinSketch(jnp.zeros_like(local_rows)),
-                hashes,
-                valid,
-                width_log2,
-            )
-            if time_major:
-                his = tuple(hashes.hi[..., i].T for i in range(num_hashes))
-                los = tuple(hashes.lo[..., i].T for i in range(num_hashes))
-                valid = valid.T
-            else:
-                his, los = (hashes.hi,), (hashes.lo,)
+            his = (jnp.stack([h.hi for h in res], -1).transpose(1, 0, 2),)
+            los = (jnp.stack([h.lo for h in res], -1).transpose(1, 0, 2),)
+            valid = valid.T
         merged = jax.lax.psum(local_sketch.rows, READS_AXIS)
         return his, los, valid, local_rows + merged
 

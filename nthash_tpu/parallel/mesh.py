@@ -5,8 +5,9 @@ The framework has two meaningful parallel axes (SURVEY.md §2.7):
   the reference's one-iterator-per-thread pattern, nthash.hpp:95-107),
 - "seq":   sequence parallelism over position for genome-scale sequences.
 
-Both are expressed as jax.sharding meshes; collectives ride ICI within a
-slice and DCN across hosts (jax.distributed).
+Both are expressed as 1-D jax.sharding meshes: the cards of one host are
+joined all to all (NVLink), so the mesh follows the algorithm alone;
+across hosts, jax.distributed forms one mesh.
 """
 
 from __future__ import annotations

@@ -5,15 +5,14 @@ Because the hash is position-decomposable (an XOR of independently-rotated
 per-base terms, src/kmer.cpp:43-73), a length-L sequence can be chunked
 across devices with only a (k-1)-base halo from the right neighbor — the
 ring-attention moral equivalent for rolling hashes (SURVEY.md §5). The halo
-moves over ICI with one ppermute; no sequential dependency crosses devices.
+moves with one ppermute; no sequential dependency crosses devices.
 
 Within a device, the chunk is reshaped into **overlapping pseudo-reads**
 [C/T, T + k - 1] (each row carries the next row's first k-1 bases, the same
 halo trick one level down), so the batched engines hash T windows per row
-fully vectorized — the Pallas kernel on TPU, the batched jnp scan elsewhere.
-Round 2 ran the whole chunk as one batch-1 scan (one serial step per base);
-this restructuring is what makes SP production-speed (VERDICT r2 missing
-#2), measured per round as ``sp_kmers_per_s`` in BENCH_r*.json.
+fully vectorized — the Triton kernel on a GPU, the batched jnp scan
+elsewhere (nthash_tpu.backend decides). One batch-1 scan over the whole
+chunk would take one serial step per base.
 
 Device d owns global windows [d*C, d*C + C); the last device's top k-1
 windows run off the sequence end and are masked invalid via halo padding
@@ -29,10 +28,10 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.kmer_jnp import hash_kmers, window_valid
+from .. import backend
+from ..ops.kmer_jnp import window_valid
 from ..ops.seed_jnp import hash_kmers_seeds
 from ..u64 import U64
-from .dp import resolve_engine
 from .mesh import SEQ_AXIS
 
 
@@ -67,7 +66,7 @@ def shard_sequence(
 
 
 def _halo_extend(chunk: jnp.ndarray, k: int, n: int) -> jnp.ndarray:
-    """Append the right neighbor's first k-1 codes (ring ppermute over ICI);
+    """Append the right neighbor's first k-1 codes (ring ppermute);
     the last device gets invalid codes so its off-end windows mask out."""
     halo_src = chunk[: k - 1]
     perm = [(i, (i - 1) % n) for i in range(n)]
@@ -117,32 +116,14 @@ def pseudo_reads(ext: jnp.ndarray, k: int, t: int) -> jnp.ndarray:
     return jnp.concatenate([main, tails], axis=1)
 
 
-def _hash_pseudo(pseudo, k, num_hashes, use_pallas, interpret):
+def _hash_pseudo(pseudo, k, num_hashes, engine, interpret):
     """[rows, t+k-1] -> (list of ``num_hashes`` U64 [rows*t], valid
-    [rows*t]). One flat [C] array per hash — a stacked [C, H] layout
-    would lane-pad the tiny trailing dim 128x on TPU (a measured 64 GB
-    allocation for H=1 at C=2^27)."""
-    rows, lk = pseudo.shape
-    t = lk - (k - 1)
-    if use_pallas:
-        from ..ops.kmer_pallas import hash_kmers_tm, prepare_codes
-
-        tm = prepare_codes(pseudo, 1)
-        res = hash_kmers_tm(tm, k, num_hashes, interpret=interpret)
-        # [W=t, R] per hash -> [rows, t] batch-major -> flatten to [C]
-        hashes = [
-            U64(h.hi.T[:rows].reshape(-1), h.lo.T[:rows].reshape(-1))
-            for h in res
-        ]
-    else:
-        res = hash_kmers(pseudo, k, num_hashes)
-        hashes = [
-            U64(res.hashes.hi[..., i].reshape(-1),
-                res.hashes.lo[..., i].reshape(-1))
-            for i in range(num_hashes)
-        ]
-    valid = window_valid(pseudo.astype(jnp.int32), k).reshape(-1)
-    return hashes, valid
+    [rows*t]): one flat array per hash, in sequence order."""
+    res, valid = backend.hash_windows_tm(
+        pseudo, k, num_hashes, engine=engine, interpret=interpret)
+    # [t, rows] per hash -> [rows, t] -> flat [C]
+    hashes = [U64(h.hi.T.reshape(-1), h.lo.T.reshape(-1)) for h in res]
+    return hashes, valid.T.reshape(-1)
 
 
 @partial(
@@ -163,27 +144,25 @@ def hash_long_sequence(
 
     Args:
       codes: [L] base codes, sharded over the "seq" mesh axis.
-      engine: "auto" (Pallas kernel on TPU, jnp elsewhere) | "jnp" |
-        "pallas".
+      engine: "auto" (the Triton kernel on a GPU, jnp elsewhere) | "jnp"
+        | "pallas" (GPU only; ``interpret=True`` runs it in the Pallas
+        interpreter for tests).
       tile: windows per pseudo-read (default 256; clipped/adjusted to
         divide the per-device chunk).
 
     Returns (list of ``num_hashes`` U64 with [L] arrays sharded over seq,
     valid [L] sharded): entry w of hash i is nte64 hash i of window
     [w, w+k); the trailing k-1 entries (which would run off the end) are
-    masked invalid, so every device owns exactly L/n entries. One flat
-    array per hash is the TPU-native layout (a [L, H] stack would lane-pad
-    the trailing dim 128x).
+    masked invalid, so every device owns exactly L/n entries.
     """
     n = mesh.shape[SEQ_AXIS]
     c = codes.shape[0] // n
     t = pick_tile(c, k, tile)
-    use_pallas = resolve_engine(engine) == "pallas"
 
     def local(chunk):
         ext = _halo_extend(chunk, k, n)
         hashes, valid = _hash_pseudo(
-            pseudo_reads(ext, k, t), k, num_hashes, use_pallas, interpret
+            pseudo_reads(ext, k, t), k, num_hashes, engine, interpret
         )
         return tuple(h.hi for h in hashes), tuple(h.lo for h in hashes), valid
 
@@ -203,9 +182,7 @@ def hash_long_sequence(
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "seeds", "num_hashes_per_seed", "mesh", "engine", "tile", "interpret"
-    ),
+    static_argnames=("seeds", "num_hashes_per_seed", "mesh", "tile"),
 )
 def hash_long_sequence_seeds(
     codes: jnp.ndarray,
@@ -213,57 +190,29 @@ def hash_long_sequence_seeds(
     num_hashes_per_seed: int,
     mesh: Mesh,
     *,
-    engine: str = "auto",
     tile: int | None = None,
-    interpret: bool = False,
 ):
     """Spaced-seed hash of every window of a device-sharded long sequence.
 
     Same halo + pseudo-read scheme as :func:`hash_long_sequence` (the
-    spaced-seed hash is also position-decomposable). Returns (list of
-    S*H U64 with [L] arrays sharded over seq, in reference hash_arr
-    order, valid [L]): entry w is the window starting at w; the trailing
-    k-1 off-end entries are masked invalid.
+    spaced-seed hash is also position-decomposable), with the direct
+    per-window XLA engine (ops/seed_jnp.py). Returns (list of S*H U64
+    with [L] arrays sharded over seq, in reference hash_arr order, valid
+    [L]): entry w is the window starting at w; the trailing k-1 off-end
+    entries are masked invalid.
     """
     n = mesh.shape[SEQ_AXIS]
     k = len(seeds[0])
     c = codes.shape[0] // n
-    # seed kernels carry per-tap state across the unrolled time loop, so
-    # their scoped-VMEM footprint grows faster with pseudo-read length
-    # than auto_interleave's block model predicts (a 260-step tile was
-    # measured 1.9x over the estimate and OOM'd); default to shorter
-    # pseudo-reads than the k-mer path's 256
-    t = pick_tile(c, k, tile if tile is not None else 128)
-    use_pallas = resolve_engine(engine) == "pallas"
+    t = pick_tile(c, k, tile)
     nout = len(seeds) * num_hashes_per_seed
 
     def local(chunk):
         ext = _halo_extend(chunk, k, n)
         pseudo = pseudo_reads(ext, k, t)
-        rows = pseudo.shape[0]
-        if use_pallas:
-            from ..ops.kmer_pallas import auto_interleave, prepare_codes
-            from ..ops.seed_pallas import hash_seeds_tm
-
-            tm = prepare_codes(pseudo, 1)
-            # halve the effective VMEM budget (doubled out_arrays): the
-            # seed kernel's scoped stack runs ~1.9x the block estimate at
-            # SP pseudo-read lengths (measured OOM at the default choice)
-            ni = auto_interleave(
-                t + k - 1, t, 4 * nout, tm.shape[1]
-            )
-            res = hash_seeds_tm(
-                tm, seeds, num_hashes_per_seed, interleave=ni,
-                interpret=interpret,
-            )
-            his = tuple(h.hi.T[:rows].reshape(-1) for h in res)
-            los = tuple(h.lo.T[:rows].reshape(-1) for h in res)
-        else:
-            res = hash_kmers_seeds(pseudo, seeds, num_hashes_per_seed)
-            his = tuple(
-                res.hashes.hi[..., i].reshape(-1) for i in range(nout))
-            los = tuple(
-                res.hashes.lo[..., i].reshape(-1) for i in range(nout))
+        res = hash_kmers_seeds(pseudo, seeds, num_hashes_per_seed)
+        his = tuple(res.hashes.hi[..., i].reshape(-1) for i in range(nout))
+        los = tuple(res.hashes.lo[..., i].reshape(-1) for i in range(nout))
         valid = window_valid(pseudo.astype(jnp.int32), k).reshape(-1)
         return his, los, valid
 

@@ -1,10 +1,10 @@
-"""uint64 arithmetic as (hi32, lo32) uint32 limb pairs for TPU.
+"""uint64 arithmetic as (hi32, lo32) uint32 limb pairs.
 
-TPUs have no native 64-bit integers, so every hash value in the device
-engines is a pair of uint32 arrays. This module implements exactly the
-operations ntHash needs — xor, add (mod 2^64), the 33|31 split-rotates, right
-shifts, and multiply-by-constant — as branch-free elementwise uint32 ops that
-map 1:1 onto VPU instructions (and are equally valid inside Pallas kernels).
+JAX runs with 64-bit integers disabled by default, so every hash value in
+the device engines is a pair of uint32 arrays. This module implements
+exactly the operations ntHash needs — xor, add (mod 2^64), the 33|31
+split-rotates, right shifts, and multiply-by-constant — as branch-free
+elementwise uint32 ops, valid both in XLA code and inside the Triton kernel.
 
 Split-rotate semantics match reference src/internal.hpp:41-66, 83-88:
 bits 0..32 (the 33-bit sub-word) and bits 33..63 (the 31-bit sub-word)
@@ -107,7 +107,7 @@ def shl(a: U64, s: int) -> U64:
 def _mulhi32(x: jnp.ndarray, y_const: int) -> jnp.ndarray:
     """High 32 bits of x * y_const for uint32 x and a 32-bit constant.
 
-    16-bit limb decomposition (TPU has no widening multiply).
+    16-bit limb decomposition: exact in uint32 arithmetic on every backend.
     """
     yl = jnp.uint32(y_const & 0xFFFF)
     yh = jnp.uint32((y_const >> 16) & 0xFFFF)
@@ -149,8 +149,8 @@ def lookup5(idx: jnp.ndarray, values: tuple[int, ...]) -> U64:
     """Branch-free 5-way constant lookup: values[idx] with values[4] == 0.
 
     The workhorse select for seed planes: codes 0..3 pick a per-base constant,
-    code 4 (N/invalid) picks zero. Lowered as a where-chain so it stays pure
-    VPU (no gather) — the pattern XLA fuses best.
+    code 4 (N/invalid) picks zero. Lowered as a where-chain of selects (no
+    gather), which fuses into the surrounding elementwise work.
     """
     assert len(values) == 5 and (values[4] & M64) == 0
     hi = jnp.zeros(idx.shape, _U32)

@@ -3,8 +3,8 @@
 BASELINE.md's north star includes scaling "1 chip -> 1 host -> >=2 hosts";
 the reference has no distribution at all (SURVEY.md §2.7). This launches
 two OS processes that form one 8-device mesh through
-jax.distributed.initialize (the coordination path multi-host TPU pods
-use), runs the full distributed hash+sketch step across both, and checks
+jax.distributed.initialize (the coordination path multi-host
+deployments use), runs the full distributed hash+sketch step across both, and checks
 the psum-merged sketch bit-exactly against the host oracle — exercising
 parallel.mesh.initialize_distributed (VERDICT r1 missing #2).
 """

@@ -152,18 +152,21 @@ def test_dp_engine_jnp_explicit(rng, mesh=None):
 
 
 def test_resolve_engine():
-    from nthash_tpu.parallel import dp
+    """One module resolves engines: on the CPU "auto" is the XLA scan,
+    and the kernel is refused instead of interpreted."""
+    from nthash_tpu import backend
 
-    assert dp.resolve_engine("jnp") == "jnp"
-    assert dp.resolve_engine("pallas") == "pallas"
-    assert dp.resolve_engine("auto") in ("jnp", "pallas")
+    assert backend.hash_engine("jnp") == "jnp"
+    assert backend.hash_engine("auto") == "jnp"
+    with pytest.raises(RuntimeError, match="GPU only"):
+        backend.hash_engine("pallas")
 
 
 @pytest.mark.slow
 def test_fused_count_matches_oracle(rng):
-    """Distributed fused counting (Pallas bucket emission -> MXU histogram
-    -> psum merge) == host-oracle counts, on a 4-device mesh (interpret
-    mode; the TPU execution path is bench.py's job)."""
+    """Distributed fused counting (kernel bucket emission -> scatter-add
+    -> psum merge) == host-oracle counts, on a 4-device mesh (the kernel
+    interpreted; chip_smoke.py runs it compiled on the GPU)."""
     from nthash_tpu import oracle
     from nthash_tpu.models import sketch as cms
     from nthash_tpu.parallel import dp

@@ -7,7 +7,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from nthash_tpu import oracle
 from nthash_tpu.constants import encode_ascii
-from nthash_tpu.ops.seed_jnp import hash_kmers_seeds
+from nthash_tpu.ops.seed_jnp import care_runs, hash_kmers_seeds, seed_taps
 
 
 def check(codes, seeds, h):
@@ -70,3 +70,17 @@ def test_palindromic_seed_strand_neutral(rng):
     hf = hash_kmers_seeds(jnp.asarray(codes), seeds, 1).hashes.to_np()
     hr = hash_kmers_seeds(jnp.asarray(rc), seeds, 1).hashes.to_np()
     assert np.array_equal(hf, hr[::-1])
+
+
+def test_care_runs():
+    assert care_runs("11100111") == [(0, 3), (5, 8)]
+    assert care_runs("10101") == [(0, 1), (2, 3), (4, 5)]
+    assert care_runs("11111") == [(0, 5)]
+    assert care_runs("0110") == [(1, 3)]
+    with pytest.raises(ValueError):
+        care_runs("000")
+
+
+def test_seed_taps_offsets():
+    taps = seed_taps("110011")
+    assert [(t.off_in, t.off_out) for t in taps] == [(4, 6), (0, 2)]

@@ -133,8 +133,7 @@ def test_count_file_checkpoint_resume(fastq, tmp_path):
             break
         codes = dp.shard_reads(jnp.asarray(batch), crashed.mesh)
         crashed.sketch = dp.fused_count(
-            codes, crashed.sketch, 9, crashed.mesh,
-            interpret=jax.default_backend() != "tpu")
+            codes, crashed.sketch, 9, crashed.mesh)
         reads_done += m
         offset = off
     assert 0 < offset < path.stat().st_size
